@@ -19,19 +19,15 @@ import traceback
 sys.path.insert(0, "tests")
 sys.path.insert(0, ".")
 
-# the sweep is a host-side conformance harness: pin the 8-device
-# virtual CPU mesh (same as tests/conftest.py) so the device-engine
-# arm runs the kernels in interpret mode instead of grabbing a TPU
-if not os.environ.get("GRAV1_TEST_TPU"):
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "--xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=8"
-        ).strip()
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+# the sweep is a host-side conformance harness: the 8-device virtual
+# CPU mesh (as tests/conftest.py sets up), where the device-engine arm
+# runs the grain kernels in interpret mode
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+flags = os.environ.get("XLA_FLAGS", "")
+if "--xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = (
+        flags + " --xla_force_host_platform_device_count=8"
+    ).strip()
 
 from test_conformance import _encode_case, run_oracle_chain  # noqa: E402
 from test_fuzz_sweep import SEED_BASE, gen_case, run_framing_arms  # noqa: E402

@@ -8,10 +8,10 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 echo "== lint (byte-compile, strict) =="
-python -m compileall -q -f grav1synth_tpu tests scripts bench.py __graft_entry__.py
+python -m compileall -q -f grav1synth tests scripts bench.py __graft_entry__.py
 
 echo "== native shim build =="
-make -C grav1synth_tpu/container/native -s
+make -C grav1synth/container/native -s
 
 echo "== tests =="
 python -m pytest tests/ -q "$@"

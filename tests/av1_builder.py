@@ -17,10 +17,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from grav1synth_tpu.bitio import BitWriter, leb128_encode
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket
-from grav1synth_tpu.obu.grain import write_film_grain_params
-from grav1synth_tpu.obu.types import ColorConfig, FilmGrainParams, FrameType
+from grav1synth.bitio import BitWriter, leb128_encode
+from grav1synth.container.ivf import IvfHeader, IvfPacket
+from grav1synth.obu.grain import write_film_grain_params
+from grav1synth.obu.types import ColorConfig, FilmGrainParams, FrameType
 
 
 @dataclass

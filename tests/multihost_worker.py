@@ -1,19 +1,19 @@
 """One process of the multi-host CPU fake-pod test (SURVEY §4
 "Implications" item 5; reference has no distributed execution at all —
-this exercises the TPU build's replacement for it).
+this exercises this build's replacement for it).
 
 Launched by test_multihost.py with JAX_PLATFORMS=cpu and
 --xla_force_host_platform_device_count=<local>, one subprocess per
 fake host. Each process:
 
 1. joins the pod via jax.distributed.initialize (gRPC coordinator),
-2. runs the production sharded grain-apply step (shard_map + Pallas
-   interpret) over the GLOBAL mesh spanning both processes' devices,
+2. runs the sharded grain-apply step (shard_map + the grain kernels in
+   interpret mode) over the GLOBAL mesh spanning both processes' devices,
    verifying its addressable output shards bit-exactly against the
    dav1d-validated host reference and the psum'd statistics,
 3. runs the per-host file-shard rewrite pipeline: each host rewrites
    its own keyframe-aligned packet ranges of a shared IVF, exchanging
-   the per-segment seed-decorrelation count deltas over DCN
+   the per-segment seed-decorrelation count deltas between processes
    (process_allgather) so the merged output is byte-identical to the
    serial pipeline for any host count.
 
@@ -58,16 +58,16 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from av1_builder import sample_grain_params
 
-    from grav1synth_tpu.container import ivf
-    from grav1synth_tpu.obu import Av1Parser, GrainRewriter
-    from grav1synth_tpu.ops import grain_jax, grain_ref
-    from grav1synth_tpu.parallel import make_mesh, sharded_apply_with_stats
-    from grav1synth_tpu.parallel.host_shard import (
+    from grav1synth.container import ivf
+    from grav1synth.obu import Av1Parser, GrainRewriter
+    from grav1synth.ops import grain_jax, grain_ref
+    from grav1synth.parallel import make_mesh, sharded_apply_with_stats
+    from grav1synth.parallel.host_shard import (
         _rewrite_shard,
         keyframe_flags,
         plan_shards,
     )
-    from grav1synth_tpu.tables import load_table
+    from grav1synth.tables import load_table
 
     n_local = jax.local_device_count()
     assert jax.process_count() == num_processes, jax.process_count()
@@ -103,7 +103,7 @@ def main() -> None:
     pb_g = jax.tree.map(lambda leaf: to_global(leaf, shard), pb)
 
     y2, cb2, cr2, energy, frames = sharded_apply_with_stats(
-        mesh, y_g, cb_g, cr_g, pb_g, 10, backend="pallas"
+        mesh, y_g, cb_g, cr_g, pb_g, 10, backend="pallas", interpret=True
     )
     assert float(frames) == b, float(frames)
     assert float(energy) > 0.0

@@ -10,12 +10,12 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu import pipelines
-from grav1synth_tpu.container import annexb
-from grav1synth_tpu.container.ffshim import Decoder, Encoder
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-from grav1synth_tpu.obu import Av1Parser, GrainTableSegment
-from grav1synth_tpu.tables import dump_table
+from grav1synth import pipelines
+from grav1synth.container import annexb
+from grav1synth.container.ffshim import Decoder, Encoder
+from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+from grav1synth.obu import Av1Parser, GrainTableSegment
+from grav1synth.tables import dump_table
 
 
 @pytest.fixture(scope="module")
@@ -173,7 +173,7 @@ class TestRawPipelines:
         raw_out = str(tmp_path / "out.obu")
         pipelines.apply_table(ivf_in, ivf_out, grain_table, progress=False)
         pipelines.apply_table(section5_path, raw_out, grain_table, progress=False)
-        from grav1synth_tpu.container.ivf import read_ivf
+        from grav1synth.container.ivf import read_ivf
 
         _, pkts = read_ivf(ivf_out)
         raw_tus = annexb.split_section5_tus(open(raw_out, "rb").read())

@@ -6,7 +6,7 @@ round trips, alignment, saturation) with our own cases.
 
 import pytest
 
-from grav1synth_tpu.bitio import (
+from grav1synth.bitio import (
     BitReader,
     BitReaderError,
     BitWriter,

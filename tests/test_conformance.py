@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.container.ffshim import Decoder, Encoder
-from grav1synth_tpu.obu import (
+from grav1synth.container.ffshim import Decoder, Encoder
+from grav1synth.obu import (
     Av1Parser,
     GrainAction,
     GrainRewriter,
@@ -101,14 +101,14 @@ def run_oracle_chain(pkts, grain_params, n_shown, mono, device_engine=False):
        (COPY_REF/show_existing resolved by the render state machine) —
        this is the BASELINE.json north-star check, host-side
     5b. (device_engine=True) the PRODUCTION device engine —
-       grain_jax.apply_grain, Pallas backend (interpret mode on the
-       CPU mesh) with native host patterns — is bit-compared against
+       grain_jax.apply_grain, grain kernels (interpret mode on the
+       CPU) with native host patterns — is bit-compared against
        the same dav1d grain-on decode, so the sweep drives the real
        kernels on its random params, not only the host reference
     6. remove round-trip: no grain reported, decode matches original
     """
-    from grav1synth_tpu.ops import grain_ref
-    from grav1synth_tpu.pipelines import GrainFrameState
+    from grav1synth.ops import grain_ref
+    from grav1synth.pipelines import GrainFrameState
 
     n = n_shown
 
@@ -192,8 +192,8 @@ def run_oracle_chain(pkts, grain_params, n_shown, mono, device_engine=False):
 
     # 5b. production device engine vs the same dav1d oracle
     if device_engine:
-        from grav1synth_tpu.ops import grain_jax
-        from grav1synth_tpu.pipelines import _grain_visible
+        from grav1synth.ops import grain_jax
+        from grav1synth.pipelines import _grain_visible
 
         todo = [i for i, prm in enumerate(eff) if _grain_visible(prm)]
         if todo:
@@ -208,7 +208,7 @@ def run_oracle_chain(pkts, grain_params, n_shown, mono, device_engine=False):
             if is_mono:
                 yo, cbo, cro = grain_jax.apply_grain(
                     y, None, None, pb, bd, sub[0], sub[1], True,
-                    backend="pallas", host_params=hp,
+                    backend="pallas", interpret=True, host_params=hp,
                 )
             else:
                 cb = np.stack(
@@ -219,7 +219,7 @@ def run_oracle_chain(pkts, grain_params, n_shown, mono, device_engine=False):
                 ).astype(np.int16)
                 yo, cbo, cro = grain_jax.apply_grain(
                     y, cb, cr, pb, bd, sub[0], sub[1], False,
-                    backend="pallas", host_params=hp,
+                    backend="pallas", interpret=True, host_params=hp,
                 )
             dev_planes = [np.asarray(yo)]
             if cbo is not None:

@@ -12,9 +12,9 @@ estimator must self-denoise, but they still require real AR character
 import numpy as np
 import pytest
 
-from grav1synth_tpu.obu.types import FilmGrainParams
-from grav1synth_tpu.ops import grain_ref
-from grav1synth_tpu.ops.estimate import NoiseEstimator
+from grav1synth.obu.types import FilmGrainParams
+from grav1synth.ops import grain_ref
+from grav1synth.ops.estimate import NoiseEstimator
 
 
 def smooth_clip(n=12, h=256, w=320, seed=4):

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.container.ffshim import Decoder, Demuxer, Encoder, Remuxer
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, read_ivf, write_ivf
-from grav1synth_tpu.obu import (
+from grav1synth.container.ffshim import Decoder, Demuxer, Encoder, Remuxer
+from grav1synth.container.ivf import IvfHeader, IvfPacket, read_ivf, write_ivf
+from grav1synth.obu import (
     Av1Parser,
     GrainAction,
     GrainRewriter,

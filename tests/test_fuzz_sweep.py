@@ -27,7 +27,7 @@ import os
 import numpy as np
 import pytest
 
-from grav1synth_tpu.obu.types import FilmGrainParams
+from grav1synth.obu.types import FilmGrainParams
 from test_conformance import _encode_case, run_oracle_chain
 
 SWEEP_N = int(os.environ.get("GRAV1_SWEEP_N", "12"))
@@ -170,11 +170,11 @@ def run_framing_arms(pkts, grain, tmp_path):
     B), and (c) round-trip a grainless remove byte-identically."""
     from test_annexb import _strip_size_fields
 
-    from grav1synth_tpu import pipelines
-    from grav1synth_tpu.container import annexb
-    from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-    from grav1synth_tpu.obu import GrainTableSegment
-    from grav1synth_tpu.tables import dump_table
+    from grav1synth import pipelines
+    from grav1synth.container import annexb
+    from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+    from grav1synth.obu import GrainTableSegment
+    from grav1synth.tables import dump_table
 
     datas = [p.data for p in pkts]
     tbl = str(tmp_path / "t.tbl")
@@ -199,7 +199,7 @@ def run_framing_arms(pkts, grain, tmp_path):
     s5_out = str(tmp_path / "out.obu")
     pipelines.apply_table(ivf_in, ivf_out, tbl, progress=False)
     pipelines.apply_table(s5_in, s5_out, tbl, progress=False)
-    from grav1synth_tpu.container.ivf import read_ivf
+    from grav1synth.container.ivf import read_ivf
 
     _, out_pkts = read_ivf(ivf_out)
     raw_tus = annexb.split_section5_tus(open(s5_out, "rb").read())

@@ -1,7 +1,7 @@
 """JAX device grain synthesis vs the dav1d-validated numpy reference.
 
 Runs on the virtual CPU mesh; the same jitted functions run unmodified
-on TPU (bench.py exercises the real chip).
+on the GPU (chip_smoke.py exercises the card).
 """
 
 import copy
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.ops import grain_jax, grain_ref
+from grav1synth.ops import grain_jax, grain_ref
 
 
 def _rand_frames(b, h, w, bit_depth, seed=5):
@@ -39,18 +39,15 @@ def test_single_frame():
 
 
 def test_device_patterns_path_matches_reference():
-    """apply_grain_device_patterns (patterns generated fully on device
-    by the GF(2)-LFSR + wavefront-AR path, then the production Pallas
-    kernels, all in one jit) must be bit-exact vs the dav1d-validated
-    host reference — the same check the hardware verify runs, kept in
-    CI via interpret mode."""
+    """apply_grain_batch (patterns generated fully on device by the
+    GF(2)-LFSR + wavefront-AR path, then the grain kernels, all in one
+    jit) must be bit-exact vs the dav1d-validated host reference; the
+    kernels run in interpret mode here."""
     params = [sample_grain_params(seed=s) for s in (777, 991)]
     y, cb, cr = _rand_frames(2, 64, 64, 10)
     pb = grain_jax.pack_params(params)
-    n_seg, chroma_static = grain_jax._host_metadata(params, False)
-    yo, cbo, cro = grain_jax.apply_grain_device_patterns(
-        y, cb, cr, pb, 10, 1, 1, False,
-        n_seg=n_seg, chroma_static=chroma_static,
+    yo, cbo, cro = grain_jax.apply_grain_batch(
+        y, cb, cr, pb, 10, 1, 1, False, backend="pallas", interpret=True,
     )
     yo, cbo, cro = np.asarray(yo), np.asarray(cbo), np.asarray(cro)
     for i, p in enumerate(params):
@@ -65,7 +62,7 @@ def test_prepared_patterns_pack_roundtrip():
     the unpack properties must reproduce the native generator's output
     exactly, and apply_grain(prepared=...) must equal the host_params
     path bit for bit."""
-    from grav1synth_tpu.container.ffshim import generate_patterns_native
+    from grav1synth.ops.grain_native import generate_patterns_native
 
     params = [sample_grain_params(seed=s) for s in (777, 991)]
     prep = grain_jax.prepare_patterns(params, 8, 1, 1, False)
@@ -74,15 +71,17 @@ def test_prepared_patterns_pack_roundtrip():
     assert (np.asarray(prep.cb) == cbp).all()
     assert (np.asarray(prep.cr) == crp).all()
     assert prep.packed.dtype == np.int16
-    assert prep.n_seg >= 1 and prep.chroma_static
+    assert prep.chroma_static
 
     y, cb, cr = _rand_frames(2, 64, 64, 8)
     pb = grain_jax.pack_params(params)
     a = grain_jax.apply_grain(
-        y, cb, cr, pb, 8, 1, 1, False, backend="pallas", host_params=params
+        y, cb, cr, pb, 8, 1, 1, False, backend="pallas", interpret=True,
+        host_params=params,
     )
     b = grain_jax.apply_grain(
-        y, cb, cr, pb, 8, 1, 1, False, backend="pallas", prepared=prep
+        y, cb, cr, pb, 8, 1, 1, False, backend="pallas", interpret=True,
+        prepared=prep,
     )
     for pa, pb_ in zip(a, b):
         assert (np.asarray(pa) == np.asarray(pb_)).all()
@@ -151,3 +150,48 @@ def test_monochrome():
     for i in range(2):
         ref = grain_ref.apply_grain_frame([y[i]], p, 8, 1, 1)
         assert (np.asarray(yj[i]).astype(np.int64) == ref[0].astype(np.int64)).all()
+
+
+def test_select_backend_by_platform():
+    assert grain_jax.select_backend("gpu") == "pallas"
+    assert grain_jax.select_backend("cpu") == "xla"
+    assert grain_jax.select_backend() == "xla"  # the CPU test mesh
+
+
+def test_backend_choice_never_interprets(monkeypatch):
+    """A backend picked by select_backend runs the kernels compiled:
+    interpret mode only when the caller asks for it."""
+    from grav1synth.ops import grain_pallas
+
+    seen = []
+
+    def luma(y, *a, interpret=False, **k):
+        seen.append(interpret)
+        return y
+
+    def chroma(y, cb, cr, *a, interpret=False, **k):
+        seen.append(interpret)
+        return cb, cr
+
+    grain_jax.apply_grain_batch.clear_cache()  # trace anew with the stubs
+    monkeypatch.setattr(grain_jax, "select_backend", lambda platform=None: "pallas")
+    monkeypatch.setattr(grain_pallas, "apply_luma", luma)
+    monkeypatch.setattr(grain_pallas, "apply_chroma", chroma)
+    params = [sample_grain_params(seed=5)]
+    y, cb, cr = _rand_frames(1, 32, 32, 8)
+    grain_jax.apply_grain(y, cb, cr, grain_jax.pack_params(params), 8)
+    assert seen == [False, False]
+    seen.clear()
+    grain_jax.apply_grain(
+        y, cb, cr, grain_jax.pack_params(params), 8, interpret=True
+    )
+    assert seen == [True, True]
+
+
+def test_unknown_backend_rejected():
+    params = [sample_grain_params(seed=5)]
+    y, cb, cr = _rand_frames(1, 32, 32, 8)
+    with pytest.raises(ValueError):
+        grain_jax.apply_grain(
+            y, cb, cr, grain_jax.pack_params(params), 8, backend="numpy"
+        )

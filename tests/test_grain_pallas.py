@@ -1,6 +1,6 @@
-"""Pallas kernel path vs the dav1d-validated reference (interpret mode
-on the CPU mesh; the same kernels are hardware-verified by the bench
-harness)."""
+"""Pallas (Triton route) grain kernels vs the dav1d-validated reference,
+run in interpret mode on the CPU. chip_smoke.py runs the same
+comparison with the kernels compiled for the GPU."""
 
 import copy
 
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.ops import grain_jax, grain_ref
+from grav1synth.ops import grain_jax, grain_ref
 
 
 def _check(params_list, bit_depth=8, h=64, w=64, host_patterns=False):
@@ -21,7 +21,7 @@ def _check(params_list, bit_depth=8, h=64, w=64, host_patterns=False):
     cr = rng.integers(0, maxv + 1, (b, (h + 1) // 2, (w + 1) // 2)).astype(np.int32)
     out = grain_jax.apply_grain(
         y, cb, cr, grain_jax.pack_params(params_list), bit_depth,
-        backend="pallas",
+        backend="pallas", interpret=True,
         host_params=params_list if host_patterns else None,
     )
     out = [np.asarray(o) for o in out]
@@ -63,19 +63,19 @@ def test_host_patterns_path():
 
 
 def test_wide_inkernel_avg():
-    """256-lane luma windows feed the in-kernel averaged-luma matmuls."""
+    """A frame four luma tiles wide (two chroma tiles)."""
     _check([sample_grain_params(seed=777)], h=64, w=512)
 
 
 def test_shifted_last_group():
-    """Last chroma lane group's luma window clamps to the padded width
-    (the d=128 shifted-P variant)."""
+    """Ragged last luma and chroma tiles: the chroma kernel's averaged
+    luma reads stop at the frame's last column."""
     _check([sample_grain_params(seed=777)], h=40, w=300)
 
 
 def test_odd_width_edge():
-    """Odd frame width duplicates the final luma column in the average
-    (edge-patched P), in both the 128- and 256-wide window regimes."""
+    """Odd frame width duplicates the final luma column in the chroma
+    scaling average, inside the first tile and past it."""
     _check([sample_grain_params(seed=777)], h=40, w=99)
     _check([sample_grain_params(seed=777)], h=40, w=301)
 
@@ -90,7 +90,7 @@ def test_monochrome():
     y = rng.integers(0, 256, (2, 64, 64)).astype(np.int32)
     pb = grain_jax.pack_params([p, p])
     yo, cbo, cro = grain_jax.apply_grain(
-        y, None, None, pb, 8, 1, 1, True, backend="pallas"
+        y, None, None, pb, 8, 1, 1, True, backend="pallas", interpret=True
     )
     assert cbo is None and cro is None
     for i in range(2):
@@ -99,16 +99,15 @@ def test_monochrome():
 
 
 def test_extreme_scaling_curve():
-    """Steep dx=1 segments stress the affine-constant overflow path."""
+    """Steep dx=1 segments of the scaling curve."""
     p = sample_grain_params(seed=3)
     p.scaling_points_y = [(0, 0), (1, 255), (2, 0), (128, 200), (255, 10)]
     _check([p])
 
 
 def test_extreme_scaling_curve_10bit():
-    """The intentional int32 wrap in c_j = bias - x0*delta combined with
-    the high-bit-depth pair evaluation (v >= x0-1 threshold, t + delta
-    neighbor) — worst-case curve at 10-bit, on both pattern paths."""
+    """Worst-case curve at 10-bit, where the LUT interpolates between
+    8-bit nodes, on both pattern paths."""
     p = sample_grain_params(seed=3)
     p.scaling_points_y = [(0, 0), (1, 255), (2, 0), (128, 200), (255, 10)]
     _check([p], bit_depth=10)
@@ -116,15 +115,13 @@ def test_extreme_scaling_curve_10bit():
 
 
 def test_nseg_specialized_10bit():
-    """host-params path specializes the scaling segment loop to the
-    batch's actual point count AND takes the shared dual-point (pair)
-    evaluation at high bit depth — both must stay bit-exact."""
+    """Host-generated patterns at 10-bit."""
     _check([sample_grain_params(seed=777)], bit_depth=10, host_patterns=True)
 
 
 def test_nseg_dense_curve():
-    """A full 14-point curve under host-params specialization (n_seg
-    hits the syntax maximum of 13) at 10-bit, mixed with a sparse one."""
+    """A full 14-point curve (the syntax maximum) mixed with a sparse
+    one, at 10-bit and 8-bit."""
     p = sample_grain_params(seed=9)
     p.scaling_points_y = [
         (x, (x * 7 + 13 * (i % 5)) % 256)
@@ -136,51 +133,47 @@ def test_nseg_dense_curve():
     _check([p, q], host_patterns=True)
 
 
-def test_split_kernel_matches_reference():
-    """The split luma + packed-pair chroma kernels (the B>=48 production
-    path; Cb|Cr pre-rolled copies packed into one int32 buffer, merged
-    once) must match grain_ref exactly — called directly since test
-    batches are below the SPLIT_BATCH dispatch threshold."""
-    import jax.numpy as jnp
+def test_multi_tile_ragged_width():
+    """Several column tiles per stripe with a ragged last tile (and a
+    ragged last stripe) in both kernels, mixed tables."""
+    from grav1synth.ops.grain_pallas import TILE_W
 
-    from grav1synth_tpu.ops import grain_pallas as gp
+    p0 = sample_grain_params(seed=777)
+    p1 = copy.deepcopy(p0)
+    p1.overlap_flag = False
+    p1.grain_seed = 4242
+    p2 = copy.deepcopy(p0)
+    p2.chroma_scaling_from_luma = True
+    p2.scaling_points_cb = []
+    p2.scaling_points_cr = []
+    _check([p0, p1, p2], bit_depth=10, h=50, w=2 * TILE_W + 2 * 37 + 1)
 
-    params_list = [sample_grain_params(seed=777 + i * 10063) for i in range(3)]
-    params_list[1].overlap_flag = False
-    params_list[2].chroma_scaling_from_luma = True
-    params_list[2].scaling_points_cb = []
-    params_list[2].scaling_points_cr = []
-    bit_depth = 10
-    rng = np.random.default_rng(11)
-    maxv = (1 << bit_depth) - 1
-    b, h, w = len(params_list), 70, 100
-    y = rng.integers(0, maxv + 1, (b, h, w)).astype(np.int16)
-    cb = rng.integers(0, maxv + 1, (b, (h + 1) // 2, (w + 1) // 2)).astype(np.int16)
-    cr = rng.integers(0, maxv + 1, (b, (h + 1) // 2, (w + 1) // 2)).astype(np.int16)
 
-    p = grain_jax.pack_params(params_list)
-    pats = grain_jax.generate_patterns(p, bit_depth, 1, 1, False)
-    offs = grain_jax.block_offsets(
-        p.seed, (h + grain_jax.BLOCK - 1) // grain_jax.BLOCK,
-        (w + grain_jax.BLOCK - 1) // grain_jax.BLOCK,
-    )
-    params3 = jnp.concatenate(
-        [
-            gp.pack_plane_params(p, "y", bit_depth),
-            gp.pack_plane_params(p, "cb", bit_depth),
-            gp.pack_plane_params(p, "cr", bit_depth),
-        ]
-    )
-    out = gp.apply_planes_split(
-        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr),
-        pats[0], pats[1], pats[2], offs, params3, bit_depth, 1, 1,
+@pytest.mark.gpu
+def test_compiled_kernels_match_reference(gpu):
+    """The kernels as Triton compiles them for the card (no interpret
+    mode), mixed tables at 10-bit on a ragged geometry."""
+    p0 = sample_grain_params(seed=777)
+    p1 = copy.deepcopy(p0)
+    p1.overlap_flag = False
+    p2 = copy.deepcopy(p0)
+    p2.chroma_scaling_from_luma = True
+    p2.scaling_points_cb = []
+    p2.scaling_points_cr = []
+    p3 = copy.deepcopy(p0)
+    p3.clip_to_restricted_range = True
+    params_list = [p0, p1, p2, p3]
+    rng = np.random.default_rng(5)
+    b, h, w = 4, 270, 481
+    y = rng.integers(0, 1024, (b, h, w)).astype(np.int32)
+    cb = rng.integers(0, 1024, (b, (h + 1) // 2, (w + 1) // 2)).astype(np.int32)
+    cr = rng.integers(0, 1024, (b, (h + 1) // 2, (w + 1) // 2)).astype(np.int32)
+    out = grain_jax.apply_grain(
+        y, cb, cr, grain_jax.pack_params(params_list), 10, backend="pallas",
+        host_params=params_list,
     )
     out = [np.asarray(o) for o in out]
-    for i, prm in enumerate(params_list):
-        ref = grain_ref.apply_grain_frame(
-            [y[i].astype(np.int32), cb[i].astype(np.int32), cr[i].astype(np.int32)],
-            prm, bit_depth, 1, 1,
-        )
+    for i, p in enumerate(params_list):
+        ref = grain_ref.apply_grain_frame([y[i], cb[i], cr[i]], p, 10, 1, 1)
         for pi in range(3):
-            bad = int((out[pi][i].astype(np.int64) != ref[pi].astype(np.int64)).sum())
-            assert bad == 0, f"frame {i} plane {pi}: {bad} bad"
+            assert (out[pi][i].astype(np.int64) == ref[pi].astype(np.int64)).all()

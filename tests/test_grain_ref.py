@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.container.ffshim import Decoder, Encoder
-from grav1synth_tpu.obu import Av1Parser, GrainRewriter, GrainTableSegment
-from grav1synth_tpu.obu.types import FilmGrainParams
-from grav1synth_tpu.ops import grain_ref
+from grav1synth.container.ffshim import Decoder, Encoder
+from grav1synth.obu import Av1Parser, GrainRewriter, GrainTableSegment
+from grav1synth.obu.types import FilmGrainParams
+from grav1synth.ops import grain_ref
 
 
 def _make_stream(bit_depth=8, w=64, h=64, flat=None, seed=3):

@@ -9,16 +9,16 @@ dimensions where the chroma edge handling changes).
 
 All three engines are held to the oracle: the host reference, the XLA
 formulation, and the production Pallas kernels (interpret mode here;
-the same kernels run compiled on TPU in bench/verify).
+chip_smoke.py runs them compiled for the GPU).
 """
 
 import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.container.ffshim import Decoder, Encoder
-from grav1synth_tpu.obu import Av1Parser, GrainRewriter, GrainTableSegment
-from grav1synth_tpu.ops import grain_jax, grain_ref
+from grav1synth.container.ffshim import Decoder, Encoder
+from grav1synth.obu import Av1Parser, GrainRewriter, GrainTableSegment
+from grav1synth.ops import grain_jax, grain_ref
 
 
 def _encode(w, h, bd, sub_x, sub_y, nframes=2, seed=11):
@@ -94,7 +94,8 @@ def _check_all_engines(f0, f1, eff, bd, sub_x, sub_y):
     pb = grain_jax.pack_params(eff)
     for backend in ("xla", "pallas"):
         out = grain_jax.apply_grain(
-            y, cb, cr, pb, bd, sub_x, sub_y, False, backend=backend
+            y, cb, cr, pb, bd, sub_x, sub_y, False, backend=backend,
+            interpret=backend == "pallas",
         )
         for pi, got in enumerate(out):
             got = np.asarray(got)

@@ -5,7 +5,7 @@ global mesh via jax.distributed.initialize and run (a) the production
 shard_map+Pallas grain-apply step with psum'd statistics, (b) the
 per-host file-shard rewrite pipeline with cross-host seed-counter
 exchange. The reference has no distributed mode at all (SURVEY §2
-P1/P2); this is the TPU-native replacement's integration test, per
+P1/P2); this is the device-parallel replacement's integration test, per
 SURVEY §4 "Implications" item 5 (CPU fake-mesh multi-host CI).
 """
 
@@ -34,11 +34,11 @@ def _free_port() -> int:
 @pytest.fixture(scope="module")
 def grainy_ivf(tmp_path_factory):
     """A multi-GOP grainy IVF + the table used to graft it."""
-    from grav1synth_tpu import pipelines
-    from grav1synth_tpu.container.ffshim import Encoder
-    from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-    from grav1synth_tpu.obu.types import GrainTableSegment
-    from grav1synth_tpu.tables import dump_table
+    from grav1synth import pipelines
+    from grav1synth.container.ffshim import Encoder
+    from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+    from grav1synth.obu.types import GrainTableSegment
+    from grav1synth.tables import dump_table
 
     tmp = tmp_path_factory.mktemp("mh")
     rng = np.random.default_rng(3)
@@ -124,7 +124,7 @@ def test_fake_pod(grainy_ivf, tmp_path, num_processes):
     assert all(s["checked"] > 0 for s in stats)
 
     # merge the per-host rewrite shards: byte-identical to serial
-    from grav1synth_tpu.container import ivf as ivf_mod
+    from grav1synth.container import ivf as ivf_mod
 
     header, packets = ivf_mod.read_ivf(ivf_path)
     n_shards = stats[0]["n_shards"]

@@ -14,16 +14,16 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu import pipelines
-from grav1synth_tpu.container.ffshim import (
+from grav1synth import pipelines
+from grav1synth.container.ffshim import (
     Decoder,
     Demuxer,
     Encoder,
     make_multistream_fixture,
 )
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-from grav1synth_tpu.obu import GrainTableSegment
-from grav1synth_tpu.tables import dump_table
+from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+from grav1synth.obu import GrainTableSegment
+from grav1synth.tables import dump_table
 
 
 @pytest.fixture(scope="session")

@@ -10,8 +10,8 @@ from av1_builder import (
     build_temporal_delimiter,
     sample_grain_params,
 )
-from grav1synth_tpu.bitio import BitReader
-from grav1synth_tpu.obu import (
+from grav1synth.bitio import BitReader
+from grav1synth.obu import (
     Av1Parser,
     FrameType,
     GrainAction,
@@ -19,7 +19,7 @@ from grav1synth_tpu.obu import (
     GrainTableSegment,
     ObuType,
 )
-from grav1synth_tpu.obu.types import DEFAULT_GRAIN_SEED
+from grav1synth.obu.types import DEFAULT_GRAIN_SEED
 
 
 def parse_stream(packets):
@@ -283,7 +283,7 @@ class TestRewrite:
         packets = build_stream(cfg, [{}, {"frame_type": FrameType.INTER}])
         seg = GrainTableSegment(0, 10**12, sample_grain_params())
         applied = self._roundtrip(packets, GrainRewriter([seg]))
-        from grav1synth_tpu.container.ivf import IvfPacket
+        from grav1synth.container.ivf import IvfPacket
 
         applied_pkts = [IvfPacket(p.pts, d) for p, d in zip(packets, applied)]
         removed = self._roundtrip(applied_pkts, GrainRewriter(None))

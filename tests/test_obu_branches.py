@@ -16,7 +16,7 @@ from av1_builder import (
     build_temporal_delimiter,
     sample_grain_params,
 )
-from grav1synth_tpu.obu import (
+from grav1synth.obu import (
     Av1Parser,
     FrameType,
     GrainAction,

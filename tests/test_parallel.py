@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.ops import grain_jax, grain_ref
-from grav1synth_tpu.parallel import frame_shards, make_mesh, sharded_apply_with_stats
+from grav1synth.ops import grain_jax, grain_ref
+from grav1synth.parallel import frame_shards, make_mesh, sharded_apply_with_stats
 
 
 def test_mesh_has_8_devices():
@@ -17,9 +17,9 @@ def test_mesh_has_8_devices():
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_sharded_apply_matches_reference(backend):
-    """The production Pallas kernel (interpret mode on the CPU mesh) and
-    the XLA formulation must both shard over the mesh and stay bit-exact
-    vs the dav1d-validated reference, all planes."""
+    """The grain kernels (interpret mode on the CPU mesh) and the XLA
+    formulation must both shard over the mesh and stay bit-exact vs the
+    dav1d-validated reference, all planes."""
     mesh = make_mesh()
     n = len(mesh.devices)
     b = n
@@ -38,7 +38,7 @@ def test_sharded_apply_matches_reference(backend):
     pb = grain_jax.pack_params(params)
     y2, cb2, cr2, energy, frames = sharded_apply_with_stats(
         mesh, jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), pb, 8,
-        backend=backend,
+        backend=backend, interpret=backend == "pallas",
     )
     assert float(frames) == b
     assert float(energy) > 0
@@ -76,11 +76,11 @@ class TestHostShard:
     def test_sharded_inspect_matches_single(self, tmp_path):
         import numpy as np
 
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.container.ffshim import Encoder
-        from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-        from grav1synth_tpu.obu import Av1Parser, GrainRewriter, GrainTableSegment
-        from grav1synth_tpu.parallel.host_shard import (
+        from grav1synth import pipelines
+        from grav1synth.container.ffshim import Encoder
+        from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+        from grav1synth.obu import Av1Parser, GrainRewriter, GrainTableSegment
+        from grav1synth.parallel.host_shard import (
             keyframe_flags,
             plan_shards,
             sharded_inspect_ivf,
@@ -127,8 +127,8 @@ class TestHostShard:
     def _multi_gop_ivf(self, tmp_path, name="m.ivf", n=24):
         import numpy as np
 
-        from grav1synth_tpu.container.ffshim import Encoder
-        from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
+        from grav1synth.container.ffshim import Encoder
+        from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
 
         rng = np.random.default_rng(7)
         frames = []
@@ -152,10 +152,10 @@ class TestHostShard:
         """Sharded apply must produce the exact single-pass bytes for
         any shard count (seed counters prefix-summed across shards).
         Two segments exercise per-segment counting."""
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.obu import GrainTableSegment
-        from grav1synth_tpu.parallel.host_shard import sharded_rewrite_ivf
-        from grav1synth_tpu.tables import dump_table
+        from grav1synth import pipelines
+        from grav1synth.obu import GrainTableSegment
+        from grav1synth.parallel.host_shard import sharded_rewrite_ivf
+        from grav1synth.tables import dump_table
 
         path = self._multi_gop_ivf(tmp_path)
         mid = -(-12 * 10_000_000 // 24)
@@ -168,7 +168,7 @@ class TestHostShard:
         serial = tmp_path / "serial.ivf"
         pipelines.apply_table(path, str(serial), str(tbl), progress=False)
         shard_out = tmp_path / f"shard{n_shards}.ivf"
-        from grav1synth_tpu.tables import load_table
+        from grav1synth.tables import load_table
 
         n = sharded_rewrite_ivf(path, str(shard_out), load_table(str(tbl)), n_shards)
         assert n == 24
@@ -181,10 +181,10 @@ class TestHostShard:
         import json
         import os
 
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.obu import GrainTableSegment
-        from grav1synth_tpu.parallel import host_shard
-        from grav1synth_tpu.tables import dump_table, load_table
+        from grav1synth import pipelines
+        from grav1synth.obu import GrainTableSegment
+        from grav1synth.parallel import host_shard
+        from grav1synth.tables import dump_table, load_table
 
         path = self._multi_gop_ivf(tmp_path, name="k.ivf")
         mid = -(-12 * 10_000_000 // 24)
@@ -239,10 +239,10 @@ class TestHostShard:
         and the job must restart cleanly."""
         import logging
 
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.obu import GrainTableSegment
-        from grav1synth_tpu.parallel import host_shard
-        from grav1synth_tpu.tables import dump_table, load_table
+        from grav1synth import pipelines
+        from grav1synth.obu import GrainTableSegment
+        from grav1synth.parallel import host_shard
+        from grav1synth.tables import dump_table, load_table
 
         path = self._multi_gop_ivf(tmp_path, name="s.ivf")
         segs_a = [GrainTableSegment(0, 10**14, sample_grain_params(seed=5))]
@@ -273,10 +273,10 @@ class TestHostShard:
         assert out.read_bytes() == serial.read_bytes()
 
     def test_sharded_remove_byte_identical(self, tmp_path):
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.obu import GrainTableSegment
-        from grav1synth_tpu.parallel.host_shard import sharded_rewrite_ivf
-        from grav1synth_tpu.tables import dump_table
+        from grav1synth import pipelines
+        from grav1synth.obu import GrainTableSegment
+        from grav1synth.parallel.host_shard import sharded_rewrite_ivf
+        from grav1synth.tables import dump_table
 
         path = self._multi_gop_ivf(tmp_path, name="m2.ivf")
         # first graft grain on, then compare serial vs sharded removal

@@ -22,8 +22,8 @@ import os
 import numpy as np
 import pytest
 
-from grav1synth_tpu.ops import grain_ref
-from grav1synth_tpu.ops.photon_noise import (
+from grav1synth.ops import grain_ref
+from grav1synth.ops.photon_noise import (
     SCALING_PER_SIGMA,
     generate_photon_noise_params,
     modeled_sigma_8bit,
@@ -128,7 +128,7 @@ class TestEndToEnd:
         params = generate_photon_noise_params(
             iso, w, h, "bt1886", full_range=full_range
         )
-        from grav1synth_tpu.ops.tables_data import GAUSSIAN_SEQUENCE
+        from grav1synth.ops.tables_data import GAUSSIAN_SEQUENCE
 
         gauss_std = float(np.std(np.asarray(GAUSSIAN_SEQUENCE, np.float64)))
         lut = grain_ref.build_scaling_lut(params.scaling_points_y, 8)
@@ -156,10 +156,10 @@ class TestEndToEnd:
     def test_generate_pipeline_uses_stream_range(self, tmp_path):
         """IVF streams: the sequence header's color_range drives the
         model (reference main.rs:296-304 reads it from codecpar)."""
-        from grav1synth_tpu import pipelines
-        from grav1synth_tpu.container.ffshim import Encoder
-        from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-        from grav1synth_tpu.obu import Av1Parser
+        from grav1synth import pipelines
+        from grav1synth.container.ffshim import Encoder
+        from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+        from grav1synth.obu import Av1Parser
 
         rng = np.random.default_rng(5)
         frames = []
@@ -182,7 +182,7 @@ class TestEndToEnd:
         parser = Av1Parser()
         seq = None
         _, rpkts = __import__(
-            "grav1synth_tpu.container.ivf", fromlist=["read_ivf"]
+            "grav1synth.container.ivf", fromlist=["read_ivf"]
         ).read_ivf(str(src))
         for p in rpkts:
             for obu in parser.parse_packet(p.data, 0):

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu import pipelines
-from grav1synth_tpu.container.ffshim import Decoder, Encoder
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-from grav1synth_tpu.obu import GrainTableSegment
-from grav1synth_tpu.tables import dump_table, load_table
+from grav1synth import pipelines
+from grav1synth.container.ffshim import Decoder, Encoder
+from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+from grav1synth.obu import GrainTableSegment
+from grav1synth.tables import dump_table, load_table
 
 
 @pytest.fixture(scope="session")
@@ -52,7 +52,7 @@ def grain_table(tmp_path):
 
 
 def _decode(path, apply_grain=False):
-    from grav1synth_tpu.container.ivf import read_ivf
+    from grav1synth.container.ivf import read_ivf
 
     _, pkts = read_ivf(path)
     dec = Decoder("libdav1d", apply_grain=apply_grain)
@@ -87,7 +87,7 @@ def test_inspect_altref_display_order_grid(tmp_path):
     parsed frame header incl. hidden ones, parser.rs:156): on an
     alt-ref stream the table must span exactly shown_frames/fps and the
     two-segment boundary must sit at a display-time grid point."""
-    from grav1synth_tpu.obu import Av1Parser
+    from grav1synth.obu import Av1Parser
 
     rng = np.random.default_rng(23)
     n = 24
@@ -117,7 +117,7 @@ def test_inspect_altref_display_order_grid(tmp_path):
     parser = Av1Parser()
     total_headers = 0
     shown = 0
-    from grav1synth_tpu.container.ivf import read_ivf
+    from grav1synth.container.ivf import read_ivf
 
     _, rpkts = read_ivf(str(path))
     for p in rpkts:
@@ -261,9 +261,9 @@ class TestDiffChroma:
         dav1d-validated reference engine must come back from the fit:
         chroma points present, and re-synthesized chroma noise levels
         within 30% of the injected ones."""
-        from grav1synth_tpu.ops import grain_ref
-        from grav1synth_tpu.ops.diff_estimate import DiffEstimator
-        from grav1synth_tpu.obu.types import FilmGrainParams
+        from grav1synth.ops import grain_ref
+        from grav1synth.ops.diff_estimate import DiffEstimator
+        from grav1synth.obu.types import FilmGrainParams
 
         # moderate, stable AR process (a near-unstable one has huge
         # seed-to-seed pattern variance no estimator can normalize out)
@@ -323,8 +323,8 @@ class TestDiffSceneCut:
         """A mid-stream jump in noise strength must split the table into
         two segments at that frame, without relying on the fixed chunk
         size (chunk_frames is set far beyond the stream length)."""
-        from grav1synth_tpu.ops.diff_estimate import DiffEstimator
-        from grav1synth_tpu.tables.aggregate import packet_bounds
+        from grav1synth.ops.diff_estimate import DiffEstimator
+        from grav1synth.tables.aggregate import packet_bounds
 
         rng = np.random.default_rng(11)
         est = DiffEstimator(
@@ -350,7 +350,7 @@ class TestDiffSceneCut:
     def test_stationary_noise_single_segment(self):
         """Constant-strength noise must NOT be split even across many
         chunk boundaries (model-equality merge keeps one segment)."""
-        from grav1synth_tpu.ops.diff_estimate import DiffEstimator
+        from grav1synth.ops.diff_estimate import DiffEstimator
 
         rng = np.random.default_rng(12)
         est = DiffEstimator((24, 1), 8, 8, chunk_frames=8, min_chunk_frames=4)
@@ -398,7 +398,7 @@ class TestEstimate:
 
 class TestCli:
     def test_cli_inspect_apply(self, real_ivf, grain_table, tmp_path, capsys):
-        from grav1synth_tpu.cli import main
+        from grav1synth.cli import main
 
         out = tmp_path / "o.ivf"
         assert main(["apply", real_ivf, "-o", str(out), "-g", grain_table, "-y"]) == 0
@@ -408,7 +408,7 @@ class TestCli:
         assert "wrote grain table" in captured
 
     def test_cli_guard_same_path(self, real_ivf):
-        from grav1synth_tpu.cli import main
+        from grav1synth.cli import main
 
         with pytest.raises(SystemExit):
             main(["remove", real_ivf, "-o", real_ivf])
@@ -417,7 +417,7 @@ class TestCli:
         """Reference parity (main.rs:152-171,362-368): EVERY writing
         subcommand — including inspect, diff, estimate — rejects
         input==output and refuses to overwrite without -y."""
-        from grav1synth_tpu.cli import main
+        from grav1synth.cli import main
 
         for argv in (
             ["inspect", real_ivf, "-o", real_ivf],
@@ -441,7 +441,7 @@ class TestCli:
     def test_cli_inspect_accepts_y(self, real_ivf, grain_table, tmp_path):
         """`inspect ... -y` parses and overwrites an existing table
         (the reference accepts -y on inspect, main.rs:160-167)."""
-        from grav1synth_tpu.cli import main
+        from grav1synth.cli import main
 
         grainy = tmp_path / "g.ivf"
         assert main(["apply", real_ivf, "-o", str(grainy), "-g", grain_table, "-y"]) == 0
@@ -452,7 +452,7 @@ class TestCli:
 
     def test_cli_inspect_shards(self, real_ivf, grain_table, tmp_path):
         """inspect --shards N produces the identical table to serial."""
-        from grav1synth_tpu.cli import main
+        from grav1synth.cli import main
 
         grainy = tmp_path / "g.ivf"
         assert main(["apply", real_ivf, "-o", str(grainy), "-g", grain_table, "-y"]) == 0
@@ -467,7 +467,7 @@ class TestMkv:
     def test_mkv_roundtrip(self, real_ivf, grain_table, tmp_path):
         """apply on an MKV container: remux keeps the stream decodable
         and the grain lands (shim demux/remux path)."""
-        from grav1synth_tpu.container.ffshim import Demuxer, Remuxer
+        from grav1synth.container.ffshim import Demuxer, Remuxer
 
         mkv_in = tmp_path / "in.mkv"
         with Demuxer(real_ivf) as dm:
@@ -483,7 +483,7 @@ class TestMkv:
         segments = pipelines.inspect(str(mkv_out), str(tbl), progress=False)
         assert segments is not None and len(segments) == 1
         # decodable via the demuxer path
-        from grav1synth_tpu.container.ffshim import Decoder
+        from grav1synth.container.ffshim import Decoder
 
         with Demuxer(str(mkv_out)) as dm:
             vs = dm.best_video_stream()
@@ -505,7 +505,7 @@ class TestResume:
         pipelines.apply_table(real_ivf, str(full), grain_table, progress=False)
         # simulate an interrupted run: copy a truncated prefix
         partial = tmp_path / "partial.ivf"
-        from grav1synth_tpu.container.ivf import scan_complete_packets
+        from grav1synth.container.ivf import scan_complete_packets
 
         data = open(full, "rb").read()
         # cut mid-way through the 4th packet (scan gives exact offsets)

@@ -1,7 +1,7 @@
-"""render pipeline: TPU-synthesized pixels vs dav1d grain-on decode.
+"""render pipeline: device-synthesized pixels vs dav1d grain-on decode.
 
-The render subcommand turns the flagship Pallas engine into a product
-surface (VERDICT r2 item 2); its oracle is dav1d itself: for every
+The render subcommand turns the grain engine into a product surface;
+its oracle is dav1d itself: for every
 displayed frame and plane, render output must be bit-exact with
 dav1d's own grain synthesis on the same stream. Fixture matrix covers
 the decoder-state machinery (GrainFrameState): plain streams, high bit
@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu import pipelines
-from grav1synth_tpu.container.ffshim import Decoder
-from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
-from grav1synth_tpu.container.y4m import Y4mWriter, read_y4m
-from grav1synth_tpu.obu import Av1Parser, GrainRewriter, GrainTableSegment
+from grav1synth import pipelines
+from grav1synth.container.ffshim import Decoder
+from grav1synth.container.ivf import IvfHeader, IvfPacket, write_ivf
+from grav1synth.container.y4m import Y4mWriter, read_y4m
+from grav1synth.obu import Av1Parser, GrainRewriter, GrainTableSegment
 
 from test_conformance import _encode_case, _grain_for
 
@@ -117,7 +117,7 @@ def test_render_stage_stats(tmp_path):
 
 
 def test_render_cli(tmp_path):
-    from grav1synth_tpu.cli import main
+    from grav1synth.cli import main
 
     path, _ = _grainy_ivf(tmp_path, 64, 64, 8, False, 3, "")
     out = tmp_path / "o.y4m"

@@ -5,20 +5,20 @@ import io
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.obu.types import (
+from grav1synth.obu.types import (
     FilmGrainParams,
     GrainAction,
     GrainHeader,
     GrainTableSegment,
 )
-from grav1synth_tpu.tables import (
+from grav1synth.tables import (
     aggregate_grain_headers,
     merge_segment_runs,
     packet_bounds,
     parse_table,
     write_table,
 )
-from grav1synth_tpu.tables.filmgrn1 import GrainTableError
+from grav1synth.tables.filmgrn1 import GrainTableError
 
 
 def _roundtrip(segments):

@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 
 from av1_builder import sample_grain_params
-from grav1synth_tpu.container.ffshim import Encoder, trace_headers_ffmpeg
-from grav1synth_tpu.obu import Av1Parser, GrainRewriter, GrainTableSegment
-from grav1synth_tpu.utils import trace as trace_mod
+from grav1synth.container.ffshim import Encoder, trace_headers_ffmpeg
+from grav1synth.obu import Av1Parser, GrainRewriter, GrainTableSegment
+from grav1synth.utils import trace as trace_mod
 
 # one field line: pos, name, optional binary, value
 _FFMPEG_FIELD = re.compile(r"^(\d+)\s+(\S+?)(?:\s+([01]+))?\s+=\s+(-?\d+)\s*$")

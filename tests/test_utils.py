@@ -6,10 +6,10 @@ import logging
 import numpy as np
 import pytest
 
-from grav1synth_tpu.bitio import BitReader
-from grav1synth_tpu.utils.filters import KERNELS, FilterChain
-from grav1synth_tpu.utils.progress import Progress
-from grav1synth_tpu.utils.trace import field_tracer, trace_log
+from grav1synth.bitio import BitReader
+from grav1synth.utils.filters import KERNELS, FilterChain
+from grav1synth.utils.progress import Progress
+from grav1synth.utils.trace import field_tracer, trace_log
 
 
 class TestFilters:
@@ -99,13 +99,13 @@ class TestTrace:
 
 class TestPrefetch:
     def test_order_and_completion(self):
-        from grav1synth_tpu.utils.prefetch import PrefetchIterator
+        from grav1synth.utils.prefetch import PrefetchIterator
 
         out = list(PrefetchIterator(iter(range(1000)), depth=7))
         assert out == list(range(1000))
 
     def test_exception_propagates(self):
-        from grav1synth_tpu.utils.prefetch import PrefetchIterator
+        from grav1synth.utils.prefetch import PrefetchIterator
 
         def gen():
             yield 1
@@ -122,14 +122,14 @@ class TestPrefetch:
     def test_close_unblocks_producer(self):
         import itertools
 
-        from grav1synth_tpu.utils.prefetch import PrefetchIterator
+        from grav1synth.utils.prefetch import PrefetchIterator
 
         it = PrefetchIterator(itertools.count(), depth=2)
         assert next(it) == 0
         it.close()  # must not hang on the infinite producer
 
     def test_maybe_prefetch_env_override(self, monkeypatch):
-        from grav1synth_tpu.utils import prefetch
+        from grav1synth.utils import prefetch
 
         monkeypatch.setenv("GRAV1_PREFETCH", "0")
         it = prefetch.maybe_prefetch(iter([1, 2]), depth=2)
@@ -139,3 +139,63 @@ class TestPrefetch:
         it = prefetch.maybe_prefetch(iter([3]), depth=2)
         assert isinstance(it, prefetch.PrefetchIterator)
         assert list(it) == [3]
+
+
+class TestCompileCache:
+    def test_env_dir_wins(self, monkeypatch, tmp_path):
+        from grav1synth.utils import compile_cache
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compile_cache.compile_cache_dir() == str(tmp_path)
+
+    def test_default_is_fixed_in_checkout(self, monkeypatch):
+        import os
+
+        from grav1synth.utils import compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = compile_cache.compile_cache_dir()
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(repo, ".jax_cache")
+        assert compile_cache.compile_cache_dir() == path  # no per-run part
+
+    @pytest.mark.parametrize("env_set", [True, False])
+    def test_setup_sets_only_the_default(self, monkeypatch, tmp_path, env_set):
+        import jax
+
+        from grav1synth.utils import compile_cache
+
+        calls = {}
+        monkeypatch.setattr(
+            jax.config, "update", lambda k, v: calls.__setitem__(k, v)
+        )
+        monkeypatch.setattr(compile_cache, "DEFAULT_DIR", str(tmp_path / "c"))
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "e"))
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = compile_cache.setup_compile_cache()
+        if env_set:
+            assert path == str(tmp_path / "e")
+            assert "jax_compilation_cache_dir" not in calls
+        else:
+            assert path == str(tmp_path / "c")
+            assert calls["jax_compilation_cache_dir"] == path
+            assert (tmp_path / "c").is_dir()
+
+
+def _worker_platforms():
+    import jax
+
+    return jax.config.jax_platforms
+
+
+class TestHostShardWorkers:
+    def test_workers_pinned_to_cpu(self, monkeypatch):
+        """The spawn pools of apply/inspect/remove --shards never take a
+        device: each worker pins JAX to the CPU before any use."""
+        from grav1synth.parallel import host_shard
+
+        monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+        with host_shard._pool(1) as pool:
+            assert pool.apply(_worker_platforms) == "cpu"
